@@ -1,6 +1,6 @@
-"""omp_bowtie2_prime_tpu — a TPU-native short-read DNA aligner.
+"""omp_bowtie2_prime_tpu — a JAX short-read DNA aligner.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 sfiligoi/omp-bowtie2-prime (an OpenMP-batched bowtie2 fork):
 
 - FM-index (BWT + checkpointed occ) exact-seed backward search

@@ -2,7 +2,7 @@
 
 Mirrors the reference tool surface (bowtie2-build, bowtie2, bowtie2-inspect;
 ref: bt2_build.cpp, bt2_search.cpp:685-885 usage + parseOption 982-1577,
-bt2_inspect.cpp) on the TPU-native engine. Index files use the .npz
+bt2_inspect.cpp) on the JAX device engine. Index files use the .npz
 container from index/format.py; existing .bt2 indexes load through
 index/bt2io.py when given.
 
@@ -760,7 +760,7 @@ def _parse_trim_to(s: str):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="bt2tpu")
     ap.add_argument("--version", action="version",
-                    version="bt2tpu 0.1 (bowtie2 2.5.4-compatible, TPU-native)")
+                    version="bt2tpu 0.1 (bowtie2 2.5.4-compatible, JAX)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     b = sub.add_parser("build", help="build FM index from FASTA")

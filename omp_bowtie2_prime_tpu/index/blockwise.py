@@ -10,7 +10,7 @@ and the FM-index is assembled by STREAMING those blocks — no O(8n)
 whole-SA allocation ever exists. Output is byte-identical to the
 in-memory SA-IS path (tests/test_blockwise.py).
 
-Design differences from the reference (TPU-era host, not a port):
+Design differences from the reference (not a port):
 - buckets are ranges of base-5 prefix keys (the same key space the ftab
   uses) chosen by one chunked histogram pass, instead of sampled
   splitter suffixes + per-bucket full scans with unbounded suffix

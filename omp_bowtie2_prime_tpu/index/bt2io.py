@@ -6,7 +6,7 @@ linesPerSide, offRate, ftabChars, flags, nPat, plen[], nFrag, rstarts[],
 ebwt sides, zOff, fchr, ftab, eftab; side layout = sideBwtSz packed-BWT
 bytes + 4 occ counts, EbwtParams bt2_idx.h:112-166; 2-bit packing low bits
 first, bitpack.h:30-49), recovers the joined text by native inverse BWT
-(the LF-walk bowtie2-inspect performs) and rebuilds the TPU-blocked layout
+(the LF-walk bowtie2-inspect performs) and rebuilds the blocked device layout
 with SA-IS. Existing bowtie2 indexes therefore load as-is; .npz remains
 the native container.
 """
@@ -253,8 +253,8 @@ def _read_arr(f, dtype, count):
 
 def load_bt2_index(basename: str, ftab_k: int = 10, srate: int = 16) -> FMIndex:
     """Load `basename`.1.bt2(l) (+ companion files implied), convert to the
-    TPU FMIndex. Only the forward index is needed (the .rev mirror serves
-    bowtie2's bidirectional search; the TPU engine searches backward only)."""
+    FMIndex. Only the forward index is needed (the .rev mirror serves
+    bowtie2's bidirectional search; this engine searches backward only)."""
     large = False
     p1 = basename + ".1.bt2"
     if not os.path.exists(p1):
@@ -296,7 +296,7 @@ def load_bt2_index(basename: str, ftab_k: int = 10, srate: int = 16) -> FMIndex:
         codes[i::4] = (bwt_bytes >> (2 * i)) & 3
     bwt = codes[:bwt_len]
 
-    # recover joined text and rebuild in the TPU layout
+    # recover joined text and rebuild in the device layout
     text = inverse_bwt(bwt, zoff, sentinel_last=True).astype(np.int8)
 
     # refmap from plen + rstarts (joined off, refid, off within ref;

@@ -4,7 +4,7 @@ The reference fork ships bowtie2's paired-end policy machinery but compiles
 the paired workers out (ENABLE_PAIRED, bt2_search.cpp:4050-4063;
 "Unsupported, likely does not work", aligner_sw_driver.cpp:633-634). The
 capability target is upstream bowtie2 semantics, rebuilt on the batched
-TPU engine:
+device engine:
 
   1. both mates run through the unpaired candidate pipeline (batched
      together so device phases see one combined batch);

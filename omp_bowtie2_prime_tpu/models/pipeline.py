@@ -12,7 +12,7 @@ With two align workers (``align_fns`` of length 2, each a distinct
 aligner instance so per-batch state never races), batch B's host phases
 (rank, candidate collection, finish) run while batch A blocks on the
 device — the single-core analog of the fork's phase-barrier OpenMP pool:
-device executions serialize on the chip either way, so the overlap
+device executions serialize on the device either way, so the overlap
 converts device wait into host progress. Output stays input-ordered via
 sequence-numbered batches reassembled at the writer.
 """
@@ -29,7 +29,7 @@ _DONE = object()
 def align_stream(als, batches, emit_fn=None):
     """Single-thread cross-batch software pipeline: batch k+1's round-0
     mega is QUEUED on the device before batch k's host phases run, so
-    the chip chews the next batch's seed search while the host frames,
+    the device chews the next batch's seed search while the host frames,
     packs DP problems and finishes reads for the current one — the
     single-stream analog of the fork's resident-batch refill that never
     lets hardware wait (bt2_search.cpp:2297-2888, pat.h:1283-1402), with

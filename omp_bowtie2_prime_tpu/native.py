@@ -1,6 +1,6 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The reference's host runtime is C++ throughout; the TPU build keeps the
+The reference's host runtime is C++ throughout; this build keeps the
 compute path in XLA but implements the heavy host-side pieces natively
 too: SA-IS suffix sorting for index construction (csrc/sais.cpp — the
 counterpart of blockwise_sa.h / libsais) and, as they land, record

@@ -4,13 +4,13 @@ sharding.
 The reference is single-node; its cross-process story is shared-memory
 index reuse (--mm/--shmem, mm.h/shmem.h:20-50) and its determinism
 contract is the OutputQueue's input-order emission (outq.h:31-45). The
-TPU-native multi-host design (SURVEY §2.4 / §5):
+multi-host design (SURVEY §2.4 / §5):
 
-  - jax.distributed initializes the pod slice; the FM index is replicated
-    per host (each host builds/loads its own copy into HBM);
+  - jax.distributed initializes the processes; the FM index is replicated
+    per host (each host builds/loads its own copy into device memory);
   - the FASTQ stream is sharded per host by contiguous read-id blocks, so
     host h aligns reads [h*B, (h+1)*B) of each superbatch — pure data
-    parallelism over DCN with no cross-host collectives;
+    parallelism with no cross-host collectives;
   - per-read determinism (same alignment regardless of placement) makes
     the merge a trivial rdid-ordered concatenation of per-host SAM shards.
 """

@@ -2,13 +2,13 @@
 
 The reference shares ONE index across threads of a host (--mm mmap /
 --shmem SysV, mm.h/shmem.h, SURVEY §2.4) — its capacity ceiling is host
-RAM. The TPU-native analog shards the two large index arrays (interleaved
+RAM. The device analog shards the two large index arrays (interleaved
 block records and the SA sample) row-wise across a mesh axis, so the
-genome capacity ceiling becomes the POD's combined HBM rather than one
-chip's. Queries stay lockstep-replicated: each rank/LF/walk step gathers
-the 512-byte block record on its owner device and recombines it everywhere
-with one psum over ICI (ops/rank.py:_gather_block / sa_lookup) — compute
-is replicated, memory is divided by the axis size.
+genome capacity ceiling becomes the mesh's combined device memory rather
+than one device's. Queries stay lockstep-replicated: each rank/LF/walk
+step gathers the 512-byte block record on its owner device and recombines
+it everywhere with one psum (ops/rank.py:_gather_block / sa_lookup) —
+compute is replicated, memory is divided by the axis size.
 
 Composes with data parallelism: a ('data', 'model') mesh shards seed
 lanes over 'data' while each data-replica's index shards over 'model'.
@@ -16,6 +16,7 @@ lanes over 'data' while each data-replica's index shards over 'model'.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
@@ -47,7 +48,8 @@ def shard_index(idx, mesh: Mesh, axis: str = "model"):
     sa = _pad_rows(np.asarray(idx.sa_sample), d)
     shard = NamedSharding(mesh, P(axis))
     repl = NamedSharding(mesh, P())
-    placed = idx.replace(
+    placed = dataclasses.replace(
+        idx,
         blocks=jax.device_put(blocks, shard),
         sa_sample=jax.device_put(sa, shard),
         fchr=jax.device_put(idx.fchr, repl),
@@ -62,8 +64,8 @@ def shard_index(idx, mesh: Mesh, axis: str = "model"):
 
 def _index_specs(idx, axis: str):
     """PartitionSpec pytree matching a tp-sharded DeviceIndex."""
-    return idx.replace(
-        blocks=P(axis), sa_sample=P(axis), fchr=P(), ftab=P(),
+    return dataclasses.replace(
+        idx, blocks=P(axis), sa_sample=P(axis), fchr=P(), ftab=P(),
         ref_words=P(), zoff=P(), nrows=P(),
     )
 

@@ -41,9 +41,9 @@ class PhaseTimers:
             lines.append(f"Timer: {name} {secs:.3f}s ({self.calls[name]}x)")
         return "\n".join(lines)
 
-    def report(self, out=sys.stderr):
+    def report(self, out=None):
         if self.acc:
-            print(self.render(), file=out)
+            print(self.render(), file=out or sys.stderr)
 
 
 class PeriodicMetrics:
@@ -100,11 +100,13 @@ class PeriodicMetrics:
 class PipelineMetrics:
     """Aggregate pipeline counters (PerReadMetrics/SSEMetrics analog:
     seeds instantiated, nonzero ranges, SA elements resolved, DP problems,
-    DP cells, candidates, backtraces)."""
+    DP cells, candidates, backtraces) plus rf_overflow: seeding rounds
+    whose fused rank/frame table overflowed and reran on the host path."""
 
     FIELDS = (
         "reads", "seeds", "ranges_nonzero", "elts_resolved", "dps",
         "dps_wide", "dps_bridge", "dp_cells", "candidates", "backtraces",
+        "rf_overflow",
     )
 
     def __init__(self):
@@ -119,5 +121,5 @@ class PipelineMetrics:
         parts = [f"{f}={getattr(self, f)}" for f in self.FIELDS]
         return "Metrics: " + " ".join(parts)
 
-    def report(self, out=sys.stderr):
-        print(self.render(), file=out)
+    def report(self, out=None):
+        print(self.render(), file=out or sys.stderr)

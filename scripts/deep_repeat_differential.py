@@ -30,6 +30,29 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 
+def repeat_genome(size, unit, rng, depths=(50, 500)):
+    """Random background with one planted family per entry of `depths`
+    (that many exact copies of a random `unit`-long sequence): copies are
+    EXACT so every copy is an equal-score placement and the candidate
+    subset choice is fully exercised. Returns (text int8 [size],
+    {depth: unit}, {depth: sorted copy starts})."""
+    text = rng.integers(0, 4, size).astype(np.int8)
+    units = {d: rng.integers(0, 4, unit).astype(np.int8) for d in depths}
+    copy_pos = {d: [] for d in depths}
+    slots = rng.choice(
+        np.arange(1000, size - unit - 1000, 2 * unit),
+        size=sum(depths), replace=False,
+    )
+    si = 0
+    for d in depths:
+        for _ in range(d):
+            p = int(slots[si]); si += 1
+            text[p : p + unit] = units[d]
+            copy_pos[d].append(p)
+        copy_pos[d].sort()
+    return text, units, copy_pos
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=2_000_000)
@@ -47,25 +70,8 @@ def main():
     wd = args.workdir
     rng = np.random.default_rng(args.seed)
 
-    # genome: random background with two planted families (50x, 500x);
-    # copies are EXACT so every copy is an equal-score placement and the
-    # candidate subset choice is fully exercised
     depths = [50, 500]
-    text = rng.integers(0, 4, args.size).astype(np.int8)
-    units = {d: rng.integers(0, 4, args.unit).astype(np.int8)
-             for d in depths}
-    copy_pos = {d: [] for d in depths}
-    slots = rng.choice(
-        np.arange(1000, args.size - args.unit - 1000, 2 * args.unit),
-        size=sum(depths), replace=False,
-    )
-    si = 0
-    for d in depths:
-        for _ in range(d):
-            p = int(slots[si]); si += 1
-            text[p : p + args.unit] = units[d]
-            copy_pos[d].append(p)
-        copy_pos[d].sort()
+    text, units, copy_pos = repeat_genome(args.size, args.unit, rng, depths)
 
     fa = os.path.join(wd, "genome.fa")
     s = dna.decode(text)

@@ -104,7 +104,7 @@ def main():
 
     climain(["align", "-x", our_idx, "-U", fq, "-S", our_sam])
     our_dt = time.time() - t0
-    print(f"our align: {our_dt:.1f}s ({args.reads/our_dt:.0f} reads/s, 1 chip "
+    print(f"our align: {our_dt:.1f}s ({args.reads/our_dt:.0f} reads/s, "
           f"incl. startup)", file=sys.stderr)
 
     # compare

@@ -43,19 +43,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 
-def build_scoring(args):
+def build_scoring(local=False, ma=None, mp=None, npen=1, rdg=None,
+                  rfg=None, ignore_quals=False, gbar=4):
+    """Scoring mirroring the CLI's flags and defaults."""
     from omp_bowtie2_prime_tpu.utils.scoring import Scoring
 
-    mp = (args.mp or "6,2").split(",")
-    rdg = (args.rdg or "5,3").split(",")
-    rfg = (args.rfg or "5,3").split(",")
-    ma = args.ma if args.ma is not None else (2 if args.local else 0)
+    mp = (mp or "6,2").split(",")
+    rdg = (rdg or "5,3").split(",")
+    rfg = (rfg or "5,3").split(",")
+    ma = ma if ma is not None else (2 if local else 0)
     return Scoring(
         match_bonus=ma,
         mmp_max=int(mp[0]), mmp_min=int(mp[1] if len(mp) > 1 else mp[0]),
-        npen=args.np, rdg_const=int(rdg[0]), rdg_linear=int(rdg[1]),
+        npen=npen, rdg_const=int(rdg[0]), rdg_linear=int(rdg[1]),
         rfg_const=int(rfg[0]), rfg_linear=int(rfg[1]),
-        ignore_quals=args.ignore_quals, gap_barrier=args.gbar,
+        ignore_quals=ignore_quals, gap_barrier=gbar,
     )
 
 
@@ -82,48 +84,33 @@ def cigar_spans(cigar: str):
     return lead, qspan, rspan, trail
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("fasta")
-    ap.add_argument("sam")
-    ap.add_argument("nsamp", nargs="?", type=int, default=500)
-    ap.add_argument("--local", action="store_true")
-    ap.add_argument("--ma", type=int, default=None)
-    ap.add_argument("--mp", default=None)
-    ap.add_argument("--np", type=int, default=1)
-    ap.add_argument("--rdg", default=None)
-    ap.add_argument("--rfg", default=None)
-    ap.add_argument("--ignore-quals", action="store_true")
-    ap.add_argument("--gbar", type=int, default=4)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-
-    os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
-
-    from omp_bowtie2_prime_tpu.index.fasta import parse_fasta
+def check_sam(ref, sam, nsamp=500, local=False, sc=None, seed=0,
+              out=sys.stdout):
+    """Check a sample of `sam`'s primary aligned records against the
+    numpy DP oracle. ref: {reference name: int8 base codes}; sc: the
+    Scoring the aligner ran with (CLI defaults when None). Prints up to
+    5 mismatches to `out`; returns (n_ok, n_bad)."""
     from omp_bowtie2_prime_tpu.ops.sw import (
         SWParams, sw_e2e_full_numpy, sw_local_full_numpy,
     )
     from omp_bowtie2_prime_tpu.utils import dna
 
-    names, seqs = parse_fasta(args.fasta)
-    ref = {n.split()[0]: s for n, s in zip(names, seqs)}
-    sc = build_scoring(args)
+    sc = sc or build_scoring(local=local)
     p = SWParams.from_scoring(sc)
     mm_tab = sc.mm_table()
 
     recs = []
-    for line in open(args.sam):
+    for line in open(sam):
         if line.startswith("@"):
             continue
         f = line.rstrip("\n").split("\t")
         if int(f[1]) & 4 or int(f[1]) & 0x100:
             continue
         recs.append(f)
-    rng = np.random.default_rng(args.seed)
-    if len(recs) > args.nsamp:
+    rng = np.random.default_rng(seed)
+    if len(recs) > nsamp:
         recs = [recs[i]
-                for i in rng.choice(len(recs), args.nsamp, replace=False)]
+                for i in rng.choice(len(recs), nsamp, replace=False)]
 
     n_ok = n_bad = 0
     for f in recs:
@@ -138,7 +125,7 @@ def main():
         pens = mm_tab[np.clip(quals, 0, 63)]
         ok = True
         why = ""
-        if args.local:
+        if local:
             lead, qspan, rspan, trail = cigar_spans(cigar)
             # window covers any geometry reachable by un-clipping either
             # end plus full-rect slack
@@ -173,7 +160,36 @@ def main():
         else:
             n_bad += 1
             if n_bad <= 5:
-                print(f"MISMATCH {f[0]}: {why} pos={pos} cigar={cigar}")
+                print(f"MISMATCH {f[0]}: {why} pos={pos} cigar={cigar}",
+                      file=out)
+    return n_ok, n_bad
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("fasta")
+    ap.add_argument("sam")
+    ap.add_argument("nsamp", nargs="?", type=int, default=500)
+    ap.add_argument("--local", action="store_true")
+    ap.add_argument("--ma", type=int, default=None)
+    ap.add_argument("--mp", default=None)
+    ap.add_argument("--np", type=int, default=1)
+    ap.add_argument("--rdg", default=None)
+    ap.add_argument("--rfg", default=None)
+    ap.add_argument("--ignore-quals", action="store_true")
+    ap.add_argument("--gbar", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    from omp_bowtie2_prime_tpu.index.fasta import parse_fasta
+
+    names, seqs = parse_fasta(args.fasta)
+    ref = {n.split()[0]: s for n, s in zip(names, seqs)}
+    sc = build_scoring(local=args.local, ma=args.ma, mp=args.mp,
+                       npen=args.np, rdg=args.rdg, rfg=args.rfg,
+                       ignore_quals=args.ignore_quals, gbar=args.gbar)
+    n_ok, n_bad = check_sam(ref, args.sam, args.nsamp, local=args.local,
+                            sc=sc, seed=args.seed)
     mode = "local" if args.local else "e2e"
     print(f"oracle[{mode}]: {n_ok}/{n_ok + n_bad} records carry the "
           f"optimal window score")

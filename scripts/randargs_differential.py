@@ -134,6 +134,24 @@ def draw_local_args(rng):
     return ours, oracle, " ".join(ours)
 
 
+def write_adapter_reads(f, text, n, rl, rng, prefix="a"):
+    """Write n FASTQ reads with adapter read-through: a genome prefix of
+    rl//2 .. rl-6 bases, then a random (foreign) tail — the clipping
+    workload --local exists for (upstream manual: local trims). Half are
+    reverse-complemented."""
+    from omp_bowtie2_prime_tpu.utils import dna
+
+    for i in range(n):
+        pos = int(rng.integers(0, len(text) - rl))
+        keep = int(rng.integers(rl // 2, rl - 5))
+        seq = text[pos : pos + rl].copy()
+        seq[keep:] = rng.integers(0, 4, rl - keep)
+        if rng.integers(0, 2):
+            seq = dna.revcomp(seq)
+        q = "".join(chr(33 + int(x)) for x in rng.integers(20, 41, rl))
+        f.write(f"@{prefix}{i}\n{dna.decode(seq)}\n+\n{q}\n")
+
+
 def run_local_trials(args):
     """Oracle-validated randomized --local trials: for each drawn knob
     combination, align mutated reads (plus adapter-contaminated reads —
@@ -143,7 +161,6 @@ def run_local_trials(args):
     import numpy as np
 
     from omp_bowtie2_prime_tpu.cli import main as climain
-    from omp_bowtie2_prime_tpu.utils import dna
 
     import math
 
@@ -159,22 +176,12 @@ def run_local_trials(args):
         fa, fq = make_trial_data(rng, wd, args.size, args.reads, rl)
         # append adapter-contaminated reads: genome prefix + foreign
         # tail, the clipping workload (upstream manual: local trims)
-        text = None
-        with open(fq, "a") as f:
-            for i in range(args.reads // 4):
-                if text is None:
-                    from omp_bowtie2_prime_tpu.index.fasta import parse_fasta
+        if args.reads // 4:
+            from omp_bowtie2_prime_tpu.index.fasta import parse_fasta
 
-                    text = parse_fasta(fa)[1][0]
-                pos = int(rng.integers(0, len(text) - rl))
-                keep = int(rng.integers(rl // 2, rl - 5))
-                seq = text[pos : pos + rl].copy()
-                seq[keep:] = rng.integers(0, 4, rl - keep)
-                if rng.integers(0, 2):
-                    seq = dna.revcomp(seq)
-                q = "".join(chr(33 + int(x))
-                            for x in rng.integers(20, 41, rl))
-                f.write(f"@a{i}\n{dna.decode(seq)}\n+\n{q}\n")
+            with open(fq, "a") as f:
+                write_adapter_reads(f, parse_fasta(fa)[1][0],
+                                    args.reads // 4, rl, rng)
         our_argv, oracle_argv, label = draw_local_args(rng)
         print(f"[....] local trial {t}: {label}", flush=True)
         idx = os.path.join(wd, "idx")

@@ -1,6 +1,6 @@
 """Tensor-parallel FM-index: blocks/SA-sample sharded row-wise across a
 'model' mesh axis with per-step psum recombination (parallel/tp_index.py,
-ops/rank.py:_gather_block) — the ICI analog of the reference's shared
+ops/rank.py:_gather_block) — the device-mesh analog of the reference's shared
 index (--mm/--shmem, SURVEY §2.4), lifting capacity past one device's
 HBM. Everything must be bitwise the replicated-index result."""
 
